@@ -2,8 +2,8 @@
 
 Measures IS-MCMC throughput (samples/s) as the chain count grows, on
 whatever devices are visible:
-  - one TPU chip: vectorisation efficiency (throughput should grow ~linearly
-    with chains until the chip saturates);
+  - one device: vectorisation efficiency (throughput should grow ~linearly
+    with chains until the device saturates);
   - a multi-device mesh (or the CPU virtual mesh): weak-scaling efficiency
     of the sharded phase-1 chains + phase-2 correction.
 

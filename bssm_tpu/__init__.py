@@ -1,21 +1,22 @@
-"""bssm_tpu — TPU-native Bayesian inference for state-space models.
+"""bssm_tpu — accelerator-native Bayesian inference for state-space models.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
+A from-scratch JAX/XLA re-design of the capabilities of the
 `bssm` R package (helske/bssm): Kalman-filter marginal MCMC for
 linear-Gaussian models, Laplace/Gaussian approximations, psi-APF and
 bootstrap particle filters, EKF/UKF/EKPF, Milstein-discretised SDEs, and
 approximate MCMC with IS-type post-correction — built for `vmap`-parallel
-chains and particle ensembles sharded over TPU meshes.
+chains and particle ensembles sharded over a GPU mesh.
 """
 
 __version__ = "0.1.0"
 
 import jax as _jax
 
-# Kalman covariance recursions are numerically meaningless under the TPU's
-# default bf16 matmul passes (NaN log-likelihoods, non-converging Laplace
-# iterations).  The system matrices here are tiny (m <= ~20), so full-f32
-# multiplication costs nothing; force it globally.
+# Kalman covariance recursions are numerically meaningless at reduced matmul
+# precision (NaN log-likelihoods, non-converging Laplace iterations); on
+# Hopper, JAX's default f32 matmul precision may run on the tensor cores in
+# TF32 (10-bit mantissa).  The system matrices here are tiny (m <= ~20), so
+# full-f32 multiplication costs nothing; force it globally.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 from .core.spec import (LGSpec, MVLGSpec, NGSpec, MVNGSpec,

@@ -1,4 +1,4 @@
-"""Model-specification PyTrees for the TPU-native state-space engine.
+"""Model-specification PyTrees for the state-space engine.
 
 Design (see SURVEY.md §7.1): instead of the reference's mutable C++ model
 classes (`/root/reference/src/model_ssm_ulg.h:12-118`), a model is an
@@ -38,8 +38,9 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
-import flax.struct as struct
 import jax.numpy as jnp
+
+from . import pytree as struct
 
 
 def at_t(A: jnp.ndarray, t) -> jnp.ndarray:

@@ -1,9 +1,9 @@
-"""Structured timing + TPU profiler hooks.
+"""Structured timing + device profiler hooks.
 
 The reference's only instrumentation is `proc.time()` around each run
 (`/root/reference/R/run_mcmc.R:207,270`); the rebuild's equivalent
 (SURVEY.md §5.1) is structured per-phase wall timing (`McmcOutput.time`)
-plus optional XLA/TPU profiler capture for kernel-level analysis.
+plus optional XLA profiler capture for kernel-level analysis.
 
     with profile_trace("/tmp/tb"):            # view in TensorBoard/xprof
         out = run_mcmc(model, ...)

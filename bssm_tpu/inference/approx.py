@@ -104,18 +104,44 @@ def approximate(spec: NGSpec, conv_tol: float = CONV_TOL,
                                                          init)
         return ApproxResult(mode, yt, H, niter, diff, None)
 
-    # default: the whole mode iteration as ONE fused kernel invocation when
-    # batched (ops/pallas_kalman._laplace_solve_kernel — a while_loop of
-    # {match -> filter -> smooth} with 128-lane-block convergence);
-    # unbatched calls run an XLA while_loop over the per-step kernel.  The
-    # (ytilde, Htilde) of the final approximation are re-derived from the
-    # penultimate mode afterwards — exactly the pair the last smoother
-    # pass consumed.
-    from ..ops.pallas_kalman import get_laplace_solver
-    solver = get_laplace_solver(conv_tol, max_iter)
-    mode, prev, niter, diff, gll = solver(spec, mode0)
+    # the (ytilde, Htilde) of the final approximation are re-derived from
+    # the penultimate mode afterwards — exactly the pair the last smoother
+    # pass consumed
+    mode, prev, niter, diff, gll = _laplace_solve(spec, mode0, conv_tol,
+                                                  max_iter)
     yt, H = _one_match(spec, prev)
     return ApproxResult(mode, yt, H, niter, diff, gll)
+
+
+def _laplace_step(spec: NGSpec, mode):
+    """One mode-matching iteration: (new mode, KF log-likelihood of the
+    approximating model at match(mode), mean-squared signal change)."""
+    n = spec.n
+    yt, H = _one_match(spec, mode)
+    alpha, ll = kalman.fast_smoother_ll(spec.approx_gaussian(yt, H))
+    new_mode = signal_from_states(spec, alpha[:n])
+    diff = jnp.sum(jnp.square(new_mode - mode)) / n
+    return new_mode, ll, diff
+
+
+def _laplace_solve(spec: NGSpec, mode0, conv_tol: float, max_iter: int):
+    """`lax.while_loop` over `_laplace_step` until the mean-squared change
+    drops below ``conv_tol``: (mode, previous mode, iterations, last change,
+    Gaussian log-likelihood of the last approximation)."""
+
+    def cond(carry):
+        _, _, i, diff, _ = carry
+        return (i < max_iter) & (diff > conv_tol)
+
+    def body(carry):
+        mode, _, i, _, _ = carry
+        new_mode, gll, diff = _laplace_step(spec, mode)
+        return (new_mode, mode, i + 1, diff, gll)
+
+    dt = mode0.dtype
+    init = (mode0, mode0, jnp.zeros((), jnp.int32),
+            jnp.asarray(conv_tol + 1.0, dt), jnp.zeros((), dt))
+    return jax.lax.while_loop(cond, body, init)
 
 
 def approximate_for_is(spec: NGSpec, stored_mode: jnp.ndarray) -> ApproxResult:

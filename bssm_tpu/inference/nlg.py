@@ -2,7 +2,7 @@
 Kalman smoothing, mode approximation with damped Gauss-Newton, psi-APF with
 transition-ratio weights, bootstrap filter and EKPF.
 
-TPU-native re-design of `/root/reference/src/model_ssm_nlg.cpp`:
+Re-design of `reference/src/model_ssm_nlg.cpp`:
 - the per-time linearisations are batched function evaluations (vmap over t);
 - the mode iteration is a `lax.while_loop` with the reference's step-halving
   backtracking (`model_ssm_nlg.cpp:119-144`) as an inner bounded loop;

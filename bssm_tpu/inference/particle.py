@@ -1,10 +1,10 @@
 """Particle filters: psi-APF, bootstrap, and SPDK importance sampling.
 
-TPU-native re-design of `/root/reference/src/model_ssm_ung.cpp:511-712` and
+Re-design of `reference/src/model_ssm_ung.cpp:511-712` and
 `/root/reference/src/model_ssm_ulg.cpp:557-672`:
 
-- the particle axis is fully vectorised (`vmap`-free batched algebra on the
-  VPU/MXU); the only sequential axis is time (`lax.scan`);
+- the particle axis is fully vectorised (`vmap`-free batched algebra); the
+  only sequential axis is time (`lax.scan`);
 - stratified resampling happens every step exactly as in the reference
   (no ESS adaptivity) so statistics match;
 - log-sum-exp weight normalisation with max-shift, degenerate ensembles
@@ -21,9 +21,14 @@ import jax.numpy as jnp
 
 from ..core import distributions as fam
 from ..core.spec import LGSpec, NGSpec, SVM
+from ..ops import kalman
 from ..ops.chol import psd_chol
 from ..ops.resample import stratified_indices, stratified_select
 from .approx import ApproxLoglik
+
+# Particle counts up to which `psi_logw` pre-draws all of its randomness;
+# above it the randomness is drawn per step (see `psi_logw`).
+PREDRAW_MAX_N = 32
 
 
 class PFResult(NamedTuple):
@@ -85,11 +90,8 @@ def psi_filter(spec: NGSpec, al: ApproxLoglik, nsim: int, key) -> PFResult:
     n, m = spec.n, spec.m
     dt = spec.y.dtype
     g = al.approx.gaussian(spec)
-    # smoother + backward factors fused into one Pallas kernel under vmap
-    # (the IS-correction draws axis); scan fallback otherwise
-    from ..ops.pallas_kalman import smoother_bwd_factors_auto
     from ..ops.resample import ancestor_trace
-    ahat, Lb, Ab = smoother_bwd_factors_auto(g)            # (n+1, m), ...
+    ahat, Lb, Ab = kalman.smoother_bwd_factors(g)          # (n+1, m), ...
 
     Zb = _bc(spec.Z, n)
     Db = _bc(spec.D.astype(dt), n)
@@ -149,7 +151,7 @@ def _prior_particles(a1, P1, nsim, key, dt):
 
 def bsf_filter(spec: NGSpec, nsim: int, key) -> PFResult:
     """Bootstrap particle filter for non-Gaussian models
-    (`/root/reference/src/model_ssm_ung.cpp:611-712`)."""
+    (`reference/src/model_ssm_ung.cpp:611-712`)."""
     n, m, k = spec.n, spec.m, spec.k
     dt = spec.y.dtype
 
@@ -262,38 +264,26 @@ def psi_logw(spec: NGSpec, al: ApproxLoglik, nsim: int, key,
     """The psi-APF log-likelihood estimate ONLY (no trajectories) — the IS
     post-correction's inner quantity when states aren't requested.
 
-    For kernel-eligible particle counts the randomness is pre-generated
-    (one threefry sweep) so that under `vmap` the whole batch can route
-    through the fused Pallas kernel (`ops/pallas_kalman.psi_logw_auto`)
-    consuming identical inputs.  Beyond the kernel's N cap the
-    pre-generated tensor is pure overhead — (n+1, N, m) normals
-    materialized per draw is ~650 MB of HBM traffic per 2048-draw chunk at
-    N = 256 — so the large-N tier either routes through the particles-in-
-    sublanes Pallas kernel with IN-KERNEL PRNG (`_psi_big_auto`, N <= 512)
-    or generates its randomness per scan step (same stream as
-    `psi_filter`).
+    Up to ``PREDRAW_MAX_N`` particles the randomness is pre-generated in one
+    threefry sweep and consumed by `psi_logw_scan`.  Above it the
+    pre-generated tensor is pure overhead — (n+1, N, m) normals per draw —
+    so `_psi_logw_keyed` generates its randomness per scan step (the same
+    stream as `psi_filter`).  The two streams give different (equally
+    valid) estimates, so the threshold is part of a run's numerics.
 
-    ``resample_every`` (large-N tier only): stratified-resample every k-th
+    ``resample_every`` (keyed tier only): stratified-resample every k-th
     step instead of every step — a fixed schedule keeps the estimator
     unbiased while skipping the dominant selection cost; 1 (default)
     matches the reference exactly."""
-    from ..ops.pallas_kalman import (_MAX_N_PSI, _psi_big_auto,
-                                     _supported_psi_big, psi_logw_auto)
-    n, m = spec.n, spec.m
-    dt = spec.y.dtype
-    if nsim > _MAX_N_PSI:
-        if _supported_psi_big(n, m, nsim):
-            seeds = key
-            if jnp.issubdtype(seeds.dtype, jax.dtypes.prng_key):
-                seeds = jax.random.key_data(seeds)
-            big = _psi_big_auto(nsim, int(resample_every))
-            return al.loglik + big(spec, al, seeds)
+    if nsim > PREDRAW_MAX_N:
         return al.loglik + _psi_logw_keyed(spec, al, nsim, key,
                                            resample_every=resample_every)
+    n, m = spec.n, spec.m
+    dt = spec.y.dtype
     k_e, k_r = jax.random.split(key)
     eps = jax.random.normal(k_e, (n + 1, nsim, m), dt)
     us = jax.random.uniform(k_r, (n, nsim), dt)
-    return al.loglik + psi_logw_auto(spec, al, eps, us)
+    return al.loglik + psi_logw_scan(spec, al, eps, us)
 
 
 def _psi_logw_keyed(spec: NGSpec, al: ApproxLoglik, nsim: int, key,
@@ -309,8 +299,7 @@ def _psi_logw_keyed(spec: NGSpec, al: ApproxLoglik, nsim: int, key,
     n, m = spec.n, spec.m
     dt = spec.y.dtype
     g = al.approx.gaussian(spec)
-    from ..ops.pallas_kalman import smoother_bwd_factors_auto
-    ahat, Lb, Ab = smoother_bwd_factors_auto(g)
+    ahat, Lb, Ab = kalman.smoother_bwd_factors(g)
     Zb = _bc(spec.Z, n)
     Db = _bc(spec.D.astype(dt), n)
     scl = al.scales
@@ -332,9 +321,7 @@ def _psi_logw_keyed(spec: NGSpec, al: ApproxLoglik, nsim: int, key,
              Z_t, D_t) = xs
             kr, kp = jax.random.split(kt)
             # one-hot matmul selection: same draw as
-            # alpha_prev[stratified_indices(nw, kr)] without the
-            # TPU-hostile per-particle gather (the scan-tier bottleneck
-            # at large N)
+            # alpha_prev[stratified_indices(nw, kr)] without a gather
             anc = stratified_gather(nw, kr, alpha_prev)
             um = jax.random.normal(kp, (nsim, m), dt)
             alpha_t = ah_t + (anc - ah_prev) @ A_t.T + um @ L_t.T
@@ -400,13 +387,12 @@ def psi_logw_scan(spec: NGSpec, al: ApproxLoglik, eps: jnp.ndarray,
     randomness; semantics identical to ``psi_filter`` (backward-factorized
     proposal) minus trajectory storage
     (`/root/reference/src/model_ssm_ung.cpp:511-609`)."""
-    from ..ops.pallas_kalman import smoother_bwd_factors_auto
     from ..ops.resample import stratified_gather_from_uniforms
     n, m = spec.n, spec.m
     nsim = eps.shape[1]
     dt = spec.y.dtype
     g = al.approx.gaussian(spec)
-    ahat, Lb, Ab = smoother_bwd_factors_auto(g)
+    ahat, Lb, Ab = kalman.smoother_bwd_factors(g)
     Zb = _bc(spec.Z, n)
     Db = _bc(spec.D.astype(dt), n)
     scl = al.scales
@@ -473,19 +459,8 @@ def bsf_logw(spec: NGSpec, nsim: int, key,
              resample_every: int = 1) -> jnp.ndarray:
     """Bootstrap-filter log-likelihood ONLY (no trajectories) — the
     pm/da/is-bsf inner quantity when states aren't requested
-    (`/root/reference/src/model_ssm_ung.cpp:611-712`).  Particle counts in
-    (32, 512] route through the particles-in-sublanes Pallas kernel with
-    in-kernel PRNG under vmap (the reference's own benchmark grid runs
-    BSF with 200 particles); otherwise a per-step-RNG scan."""
-    from ..ops.pallas_kalman import (_MAX_N_PSI, _bsf_big_auto,
-                                     _supported_psi_big)
+    (`reference/src/model_ssm_ung.cpp:611-712`)."""
     const = fam.obs_log_const(spec.distribution, spec.y, spec.u, spec.phi)
-    if nsim > _MAX_N_PSI and _supported_psi_big(spec.n - 1, spec.m, nsim):
-        seeds = key
-        if jnp.issubdtype(seeds.dtype, jax.dtypes.prng_key):
-            seeds = jax.random.key_data(seeds)
-        big = _bsf_big_auto(nsim, int(resample_every))
-        return big(spec, seeds) + const
     return _bsf_logw_keyed(spec, nsim, key,
                            resample_every=resample_every) + const
 

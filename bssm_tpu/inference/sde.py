@@ -1,6 +1,6 @@
 """Bootstrap particle filtering for SDE models.
 
-TPU-native version of `/root/reference/src/model_ssm_sde.cpp:21-82`: the
+Vectorised version of `reference/src/model_ssm_sde.cpp:21-82`: the
 particle axis is vectorised (each particle's 2^L-step Milstein path runs as
 a scan with a per-(particle, time) threefry key), resampling is stratified
 every step, and the coarse/fine multilevel pair shares Brownian increments

@@ -1,6 +1,6 @@
 """Basic structural time-series models (level / slope / seasonal [/ noise]).
 
-TPU-native equivalents of the reference's fixed-form subclasses:
+Equivalents of the reference's fixed-form subclasses:
   bsm_lg — `/root/reference/R/models.R:642-804`,
            `/root/reference/src/model_bsm_lg.cpp:24-126`
   bsm_ng — `/root/reference/R/models.R:926-1100`,

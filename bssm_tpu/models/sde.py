@@ -16,11 +16,11 @@ from __future__ import annotations
 
 from typing import Callable
 
-import flax.struct as struct
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..core import pytree as struct
 from .base import Model
 
 

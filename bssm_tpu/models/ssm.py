@@ -102,7 +102,7 @@ def _make_model(base_spec, update_fn, prior_fn, init_theta, kind, extra,
                 else:
                     norm[k] = v
             # LGSpec/MVLGSpec are NamedTuples (_replace); NG specs are
-            # flax.struct dataclasses (replace)
+            # core.pytree dataclasses (replace)
             spec = (spec._replace(**norm) if hasattr(spec, "_replace")
                     else spec.replace(**norm))
         return spec

@@ -1,6 +1,6 @@
 """Native host-side kernels (C++ via ctypes) with numpy fallback.
 
-The compute path is JAX/XLA on TPU; this package covers the *host* side of
+The compute path is JAX/XLA on the accelerator; this package covers the *host* side of
 the runtime — fast post-processing of large stored chains (IACT, weighted
 moments, resampling) — mirroring the reference's host C++ L1 utilities
 (`/root/reference/src/R_iact.cpp`, `summary.cpp`, `stratified_sample.cpp`).

@@ -1,13 +1,14 @@
 // Host-side post-processing kernels for bssm_tpu.
 //
-// TPU-native equivalent of the reference's host C++ utilities that do NOT
+// Equivalent of the reference's host C++ utilities that do NOT
 // belong on the accelerator: Sokal IACT (src/R_iact.cpp), streaming weighted
 // moments (src/summary.cpp) and stratified resampling
 // (src/stratified_sample.cpp) over large stored chains.  Compiled to a plain
 // C shared library loaded via ctypes; diagnostics fall back to numpy when
 // the library is unavailable.
 //
-// Build: see bssm_tpu/native/build.py (g++ -O3 -march=native -shared -fPIC).
+// Build: see bssm_tpu/native/__init__.py (g++ -O3 -march=native -shared
+// -fPIC, on first use).
 
 #include <algorithm>
 #include <cmath>

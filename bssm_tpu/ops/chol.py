@@ -3,7 +3,7 @@
 State-space models routinely carry deterministic state components, so
 covariance matrices have exact zero rows/columns.  The reference handles this
 by slicing out the nonzero submatrix (`/root/reference/src/psd_chol.cpp:5-18`,
-`/root/reference/src/conditional_dist.cpp:33-65`); on TPU we need static
+`reference/src/conditional_dist.cpp:33-65`); under jit we need static
 shapes, so we use the "unit-diagonal padding" trick: add 1 to the diagonal of
 (near-)zero rows, factor, and zero them back out.  Because those rows/columns
 are zero off-diagonal, the resulting factor is exactly the padded-submatrix

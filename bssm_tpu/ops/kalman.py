@@ -1,6 +1,6 @@
 """Univariate-observation Kalman filtering/smoothing as `lax.scan` recursions.
 
-TPU-native re-design of `/root/reference/src/model_ssm_ulg.cpp` (scalar-F fast
+Re-design of `reference/src/model_ssm_ulg.cpp` (scalar-F fast
 path, NA-skip, Joseph-form covariance update).  Missing observations are
 handled branch-free with masks premultiplied into the updates; all functions
 are pure in the model spec and `vmap`/`pjit` friendly.
@@ -238,7 +238,7 @@ def smoother_bwd_factors(spec: LGSpec):
     A = ccov' Vt^+ (`/root/reference/src/conditional_dist.cpp:4-67`), which
     pseudo-inverts the smoothed covariance — a quantity formed by
     cancellation whose small eigenvalues carry ~100% relative error at
-    f32, turning A into garbage (|A| ~ 500 observed on TPU).  The backward
+    f32, turning A into garbage (|A| ~ 500 observed in f32 runs).  The backward
     gain J needs only filter quantities whose per-direction scales match,
     and is f32-stable by construction.
 

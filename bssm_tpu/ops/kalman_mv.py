@@ -1,7 +1,7 @@
 """Multivariate-observation Kalman filtering/smoothing with partial
 missingness, as masked `lax.scan` recursions.
 
-TPU-native re-design of `/root/reference/src/model_ssm_mlg.cpp`: per-time
+Re-design of `reference/src/model_ssm_mlg.cpp`: per-time
 `find_finite` slicing becomes static-shape masking — missing series get a
 zeroed Z row, a unit pseudo-variance on the H H' diagonal and a zeroed
 innovation, which reproduces the partial update exactly (the masked block of

@@ -3,8 +3,8 @@
 Stratified resampling follows `/root/reference/src/stratified_sample.cpp:9-28`
 (Vihola's O(N) cumsum walk): with normalised weights w and uniforms
 r_j ~ U(0,1), index_j = min{ k : cumsum(w)_k >= (j + r_j)/N }.  Implemented
-as searchsorted over the cumulative weights — O(N log N) but fully parallel
-on the VPU, which beats a sequential O(N) walk on TPU.
+as searchsorted over the cumulative weights — O(N log N) but fully
+parallel, where the reference walks sequentially in O(N).
 
 Ancestor tracing re-designs `/root/reference/src/filter_smoother.cpp:5-20`
 (in-place cube rewrite) as a reverse scan composing index maps, followed by
@@ -28,8 +28,8 @@ def stratified_indices(weights: jnp.ndarray, key) -> jnp.ndarray:
 
 def stratified_select(weights: jnp.ndarray, key, alpha: jnp.ndarray):
     """(resampled values, indices) sharing one uniform draw: the values
-    come from the one-hot selection matmul (`stratified_gather` rationale —
-    MXU-friendly, no per-particle gather) and the indices from the same
+    come from the one-hot selection matmul (`stratified_gather`) and the
+    indices from the same
     uniforms via searchsorted, for ancestor tracing.  Both agree with
     ``alpha[stratified_indices(weights, key)]`` identically."""
     N = weights.shape[0]
@@ -42,7 +42,7 @@ def stratified_select(weights: jnp.ndarray, key, alpha: jnp.ndarray):
                    N - 1).astype(jnp.int32)
     ge = cp[None, :] >= u[:, None]
     # prev[0] = -1 (not 0): u == 0.0 must select column 0, matching
-    # searchsorted's side="left" and the fused kernel's q==0 special case
+    # searchsorted's side="left"
     prev = jnp.concatenate([jnp.full((1,), -1.0, dt), cp[:-1]])
     lt = prev[None, :] < u[:, None]
     H = (ge & lt).astype(alpha.dtype)
@@ -54,12 +54,10 @@ def stratified_gather(weights: jnp.ndarray, key, alpha: jnp.ndarray
     """Resampled particle VALUES via a one-hot selection matmul: returns
     ``alpha[stratified_indices(weights, key)]`` without the gather.
 
-    TPU lowers per-particle dynamic gathers to serialized scatter/gather
-    sequences — the dominant cost of the large-N scan-tier psi filter.
     The selection matrix H[p, q] = 1{cp[q-1] < u_p <= cp[q]} has exactly
-    one 1 per row by construction, so H @ alpha is the gathered ensemble
-    and runs on the MXU (O(N^2 m) MACs beat O(N) serialized gathers by
-    orders of magnitude at N ~ 256)."""
+    one 1 per row by construction, so H @ alpha is the gathered ensemble,
+    at O(N^2 m) multiply-adds.  Whether this beats a searchsorted +
+    gather on the GPU is unmeasured (ROADMAP speed item 3)."""
     N = weights.shape[0]
     dt = weights.dtype
     cp = jnp.cumsum(weights)
@@ -102,8 +100,8 @@ def ancestor_trace(alpha: jnp.ndarray, indices: jnp.ndarray) -> jnp.ndarray:
 def stratified_indices_from_uniforms(weights: jnp.ndarray,
                                      r: jnp.ndarray) -> jnp.ndarray:
     """Stratified resampling with caller-supplied uniforms r ~ U(0,1)^N —
-    lets filters pre-generate all randomness up front (one threefry sweep)
-    and keeps Pallas/XLA implementations bit-comparable."""
+    lets filters pre-generate all randomness up front (one threefry
+    sweep)."""
     N = weights.shape[0]
     cp = jnp.cumsum(weights)
     cp = cp.at[-1].set(1.0)

@@ -1,6 +1,6 @@
 """Durbin-Koopman simulation smoother (with antithetic variates).
 
-TPU-native version of `/root/reference/src/model_ssm_ulg.cpp:141-247`:
+Vectorised version of `reference/src/model_ssm_ulg.cpp:141-247`:
 draw an unconditional trajectory (alpha+, y+), smooth the synthetic data, and
 combine  alpha_sim = alphahat - E[alpha | y+] + alpha+.
 

@@ -1,19 +1,20 @@
-"""Multi-host bootstrap: jax.distributed + a global (chains x draws) mesh.
+"""Multi-process bootstrap: jax.distributed + a global (chains x draws) mesh.
 
 The reference's parallelism stops at single-node OpenMP
-(`/root/reference/src/approx_mcmc.cpp:364-368`); the TPU-native scale-out
-(SURVEY.md §2.3/§5.8) runs the same sharded programs over a multi-host mesh:
-each host feeds its local devices, XLA routes collectives over ICI within a
-slice and DCN across hosts.  Because chains and IS-correction draws are
-independent, the only cross-device traffic is the final weighted-moment
-reduction — DCN-friendly.
+(`reference/src/approx_mcmc.cpp:364-368`); here the same sharded
+programs run over a mesh of every process's GPUs.  Chains and
+IS-correction draws are independent, so the only cross-device traffic is
+the final weighted-moment reduction.
 
-Typical SPMD launch (one process per host, e.g. under `xmanager`/GKE):
+Typical SPMD launch (one process per host, each with its local GPUs):
 
     from bssm_tpu.parallel.distributed import initialize, global_mesh
     initialize()                       # no-op on a single process
     mesh = global_mesh(("chains", "draws"))
     out = run_mcmc(model, ..., n_chains=8192, mesh=mesh)
+
+Nothing detects a cluster: the coordinator address, process count and
+process id come from the arguments or the ``JAX_*`` environment variables.
 """
 from __future__ import annotations
 
@@ -30,32 +31,23 @@ def initialize(coordinator_address: Optional[str] = None,
 
     Arguments default from the standard env vars
     (``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
-    ``JAX_PROCESS_ID``; cloud TPU pods auto-detect all three).  Returns True
-    when a multi-process runtime was initialised, False for the single-
-    process fast path (nothing to do).
+    ``JAX_PROCESS_ID``).  Returns True when a multi-process runtime was
+    initialised, False for the single-process fast path (nothing to do).
     """
     addr = coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS")
     nproc = num_processes if num_processes is not None else \
         int(os.environ.get("JAX_NUM_PROCESSES", "0") or 0)
     pid = process_id if process_id is not None else \
         int(os.environ.get("JAX_PROCESS_ID", "-1") or -1)
-    workers = [w for w in os.environ.get("TPU_WORKER_HOSTNAMES",
-                                         "").split(",") if w]
-    on_pod = len(workers) > 1          # single-worker slices stay local
-    if coordinator_address is not None and nproc in (0, 1) and not on_pod:
+    if coordinator_address is not None and nproc in (0, 1):
         # an explicit coordinator with no process count would silently run
         # every host standalone (duplicated chains, clashing checkpoints)
         raise ValueError(
             "initialize(coordinator_address=...) needs num_processes (and "
-            "process_id) or the JAX_NUM_PROCESSES/JAX_PROCESS_ID env vars "
-            "when not on a TPU pod")
-    if not (addr or on_pod) or (nproc in (0, 1) and not on_pod):
+            "process_id) or the JAX_NUM_PROCESSES/JAX_PROCESS_ID env vars")
+    if not addr or nproc in (0, 1):
         return False
-    kwargs = {}
-    if addr:
-        kwargs["coordinator_address"] = addr
-    if nproc:
-        kwargs["num_processes"] = nproc
+    kwargs = {"coordinator_address": addr, "num_processes": nproc}
     if pid >= 0:
         kwargs["process_id"] = pid
     jax.distributed.initialize(**kwargs)
@@ -64,11 +56,11 @@ def initialize(coordinator_address: Optional[str] = None,
 
 def global_mesh(axes: Sequence[str] = ("chains", "draws"),
                 shape: Optional[Sequence[int]] = None) -> "jax.sharding.Mesh":
-    """A mesh over ALL global devices (every host's chips).
+    """A mesh over ALL global devices (every host's GPUs).
 
     With no ``shape``, all devices go on the first axis.  Prefer putting the
     host boundary on the "chains" axis: chains never communicate, so the
-    DCN link carries no hot-loop traffic.
+    link between hosts carries no hot-loop traffic.
     """
     from .mesh import make_mesh
     import numpy as np

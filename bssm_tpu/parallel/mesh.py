@@ -1,7 +1,7 @@
 """Device-mesh utilities: chain- and draw-parallel sharding.
 
 The reference's only parallelism is single-node OpenMP over stored draws
-(`/root/reference/src/approx_mcmc.cpp:364-368`).  The TPU-native design
+(`reference/src/approx_mcmc.cpp:364-368`).  This design
 (SURVEY.md §2.3, §5.8) shards
 
   - phase 1: independent RAM chains over the whole mesh (axis "chains"),

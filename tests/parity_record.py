@@ -4,7 +4,7 @@ When ``BSSM_PARITY_OUT`` is set (by ``benchmarks/parity_run.py``), each slow
 parity test appends one JSON line with the quantities it measured and the
 reference targets it asserted against, so a committed ``PARITY_r0N.json``
 records the statistical health of the round without re-running the ~40-min
-suite (VERDICT r2 item 9; reference anchors in BASELINE.md).
+suite (reference anchors in BASELINE.md).
 """
 import json
 import os

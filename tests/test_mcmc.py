@@ -160,7 +160,7 @@ def test_local_approx_false_global_approximation(rng):
 
 def test_store_modes_false_matches(rng):
     """run_mcmc(store_modes=False) drops the (chains, S, n) Laplace-mode
-    stack (the long-series HBM wall, ZOO_r04 exchange note) and recomputes
+    stack (the long-series device-memory wall) and recomputes
     modes cold in the correction — identical chains, log-weights equal to
     approximation tolerance."""
     import jax.numpy as jnp

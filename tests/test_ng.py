@@ -165,8 +165,7 @@ def test_bsm_ng_seasonal_noise_T_quirk(rng):
 
 
 def test_bsm_ng_seasonal12_dense_oracle_and_recovery(rng):
-    """Period-12 seasonal bsm_ng (m = 13, beyond every fused-kernel
-    envelope: full scan tier).  (a) The Laplace approximation's Gaussian
+    """Period-12 seasonal bsm_ng (m = 13).  (a) The Laplace approximation's Gaussian
     model must agree with the exact dense-conditioning oracle at m = 13
     (`/root/reference/R/models.R:926` headline component); (b) the
     smoothed seasonal state must recover the injected monthly pattern."""

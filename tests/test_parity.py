@@ -199,11 +199,8 @@ def test_exchange_svm_consistency():
 
 @pytest.mark.slow
 def test_poisson_series_f32_fused_parity():
-    """The TPU production configuration — float32 model + fused Pallas
-    kernels (interpret mode on CPU) — must reproduce the same published
-    posterior as the x64 scan path (VERDICT r03 item 2: f32 statistical
-    parity on the fused path was unproven)."""
-    from bssm_tpu.core import config
+    """The production configuration — a float32 model — must reproduce
+    the same published posterior as the x64 path."""
     import jax.numpy as jnp
     y = load_rda(f"{DATA}/poisson_series.rda")["poisson_series"]
     y = np.asarray(y, dtype=float)
@@ -212,14 +209,8 @@ def test_poisson_series_f32_fused_parity():
                    sd_slope=uniform_prior(0.004, 0.0, 2 * s),
                    P1=np.eye(2) * 0.1, distribution="poisson",
                    dtype=jnp.float32)
-    old = config.fused_kernels
-    try:
-        config.set_fused_kernels(True)
-        out = run_mcmc(model, iter=20000, burnin=4000, particles=10,
-                       mcmc_type="is2", seed=2, output_type="theta",
-                       n_chains=2)
-    finally:
-        config.set_fused_kernels(old)
+    out = run_mcmc(model, iter=20000, burnin=4000, particles=10,
+                   mcmc_type="is2", seed=2, output_type="theta", n_chains=2)
     w = out.flat_weights()
     th = out.flat_theta()
     means = dict(zip(out.theta_names,
@@ -237,9 +228,8 @@ def test_poisson_series_f32_fused_parity():
 
 @pytest.mark.slow
 def test_drownings_f32_fused_parity():
-    """Drownings config in f32 + fused kernels: weighted means match the
-    x64 is2 run within MC tolerance, IS weights non-degenerate."""
-    from bssm_tpu.core import config
+    """Drownings config in f32: weighted means match the x64 is2 run
+    within MC tolerance, IS weights non-degenerate."""
     import jax.numpy as jnp
     d = load_rda(f"{DATA}/drownings.rda")["drownings"]
     deaths, population, summer_temp = d[:, 0], d[:, 1], d[:, 2]
@@ -252,12 +242,7 @@ def test_drownings_f32_fused_parity():
     m64 = bsm_ng(deaths, **kw)
     run = dict(iter=8000, burnin=2000, particles=10, mcmc_type="is2",
                seed=1, output_type="theta", n_chains=2)
-    old = config.fused_kernels
-    try:
-        config.set_fused_kernels(True)
-        o32 = run_mcmc(m32, **run)
-    finally:
-        config.set_fused_kernels(old)
+    o32 = run_mcmc(m32, **run)
     o64 = run_mcmc(m64, **run)
     a = np.average(o32.flat_theta(), axis=0, weights=o32.flat_weights())
     b = np.average(o64.flat_theta(), axis=0, weights=o64.flat_weights())
@@ -267,7 +252,7 @@ def test_drownings_f32_fused_parity():
            {f"f32_{nm}": v for nm, v in zip(o32.theta_names, a)}
            | {f"x64_{nm}": v for nm, v in zip(o64.theta_names, b)}
            | {"ess_is_frac": eff},
-           {"agreement": ["f32-fused == x64-scan", "rtol 0.1 atol 0.005"],
+           {"agreement": ["f32 == x64", "rtol 0.1 atol 0.005"],
             "ess_is_frac": ["> 0.9", 0.9]})
     np.testing.assert_allclose(a, b, rtol=0.1, atol=0.005)
     assert eff > 0.9, eff
@@ -275,9 +260,8 @@ def test_drownings_f32_fused_parity():
 
 @pytest.mark.slow
 def test_negbin_f32_fused_parity():
-    """negbin + xreg in f32 + fused kernels: covers the phi path of the
-    in-kernel family math (poisson/drownings tests cover u and D)."""
-    from bssm_tpu.core import config
+    """negbin + xreg in f32: covers the phi path of the family math
+    (poisson/drownings tests cover u and D)."""
     from bssm_tpu.diagnostics.summary import ess_is
     import jax.numpy as jnp
     d = load_rda(f"{DATA}/negbin_series.rda")["negbin_series"]
@@ -291,12 +275,7 @@ def test_negbin_f32_fused_parity():
     run = dict(iter=6000, burnin=1500, particles=10, mcmc_type="is2",
                seed=1, output_type="theta", n_chains=2)
     m32 = bsm_ng(y, dtype=jnp.float32, **kw)
-    old = config.fused_kernels
-    try:
-        config.set_fused_kernels(True)
-        o32 = run_mcmc(m32, **run)
-    finally:
-        config.set_fused_kernels(old)
+    o32 = run_mcmc(m32, **run)
     o64 = run_mcmc(bsm_ng(y, **kw), **run)
     a = np.average(o32.flat_theta(), axis=0, weights=o32.flat_weights())
     b = np.average(o64.flat_theta(), axis=0, weights=o64.flat_weights())
@@ -305,7 +284,7 @@ def test_negbin_f32_fused_parity():
            {f"f32_{nm}": v for nm, v in zip(o32.theta_names, a)}
            | {f"x64_{nm}": v for nm, v in zip(o64.theta_names, b)}
            | {"ess_is_frac": eff},
-           {"agreement": ["f32-fused == x64-scan", "rtol 0.1 atol 0.005"],
+           {"agreement": ["f32 == x64", "rtol 0.1 atol 0.005"],
             "ess_is_frac": ["> 0.9", 0.9]})
     np.testing.assert_allclose(a, b, rtol=0.1, atol=0.005)
     assert eff > 0.9, eff
